@@ -1,15 +1,15 @@
 #!/usr/bin/env bash
 # End-to-end cohort recipe — the km-tpu equivalent of the reference's
 # example/run_leucegene.sh (fastq-dump -> jellyfish count -> per-target
-# km find_mutation | km find_report loop), with counting on the TPU and
+# km find_mutation | km find_report loop), with counting on the GPU and
 # all targets walked in one batched invocation per sample.
 #
 # Usage: run_cohort.sh <catalog_dir> <out_dir> <sample1.fastq[.gz]> [...]
 #
 # The one-command equivalent (counts raw-read samples on the local
-# device mesh — all_to_all-sharded when more than one chip is attached
-# — and, under jax.distributed, splits the sample list across the hosts
-# of a pod slice):
+# device mesh — all_to_all-sharded when more than one card is attached
+# — and, under jax.distributed, splits the sample list across the
+# processes):
 #
 #   km-tpu cohort -t "$CATALOG" -o "$OUT" sample1.fastq sample2.jf ...
 #

@@ -1,4 +1,4 @@
-"""km_tpu — a TPU-native targeted RNA-seq variant detection framework.
+"""km_tpu — targeted RNA-seq variant detection in JAX.
 
 Capabilities mirror iric-soft/km (see /root/reference): given small FASTA
 targets around suspected mutations and k-mer counts derived from RNA-seq
@@ -6,7 +6,7 @@ reads, discover and quantify SNVs, insertions, deletions, ITDs and I&I
 events by walking a local de Bruijn graph seeded from the target.
 
 Unlike km (pure Python over the external C++ Jellyfish counter), km_tpu is
-built JAX/XLA/Pallas-first:
+built JAX/XLA-first:
 
 - k-mers are 2-bit packed uint64 words; counting runs on-device via
   sort + segment-reduction (``km_tpu.ops.count``), with a host C++
@@ -19,7 +19,7 @@ built JAX/XLA/Pallas-first:
 
 A host "exact" engine (``km_tpu.models``) reproduces km's outputs
 byte-for-byte (reference: km/tools/find_mutation.py, km/tools/find_report.py)
-and is the semantic spec the batched TPU path is validated against.
+and is the semantic spec the batched device path is validated against.
 """
 
 __version__ = "0.1.0"

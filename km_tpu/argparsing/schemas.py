@@ -133,14 +133,17 @@ def add_count_args(parser):
         help="Output count table (.npz, or .jf for Jellyfish's own "
              "binary/sorted layout)")
     parser.add_argument(
-        "--device", choices=["auto", "tpu", "cpu", "host"], default="auto",
-        help="Where to run counting (host = pure numpy)")
+        "--device", choices=["auto", "gpu", "cpu", "host"], default="auto",
+        help="Where to run counting: gpu (fails without one), cpu (the "
+             "same JAX path on JAX's CPU backend), host (pure numpy), "
+             "auto (host for inputs under 8 MB, else gpu when present, "
+             "else host)")
     parser.add_argument(
         "--mode", choices=["auto", "stream", "chunked"], default="auto",
         help="Device counting strategy: 'stream' keeps one accumulator "
              "on-device (single readback), 'chunked' reads back "
              "per-chunk runs and k-way-merges them natively on the "
-             "host; 'auto' picks per backend")
+             "host; 'auto' = 'stream'")
     parser.add_argument(
         "reads_fn", nargs="+",
         help="FASTQ/FASTA read files (optionally .gz)")

@@ -15,7 +15,7 @@ Differences by design: nodes are packed uint64 keys; all 4 child counts
 resolve in one vectorized table lookup with memoization; the walk iterates
 over target k-mers in *target order* (km iterates a Python string set whose
 order is hash-randomized — any order is admissible, this one is
-deterministic). The batched multi-target frontier walk for TPU lives in
+deterministic). The batched multi-target device frontier walk lives in
 km_tpu.ops; this host walk is the exact-order spec.
 """
 

@@ -5,7 +5,7 @@
 // kernels. Replaces the capability of Jellyfish's C++ reader front-end
 // (the reference reaches it via `jellyfish count`;
 // /root/reference/example/run_leucegene.sh:22) — km_tpu parses on the
-// host and counts on the TPU.
+// host and counts on the GPU.
 //
 // Layout contract (shared with km_tpu/io/fastq.py): reads are
 // concatenated into one code stream, one invalid separator position

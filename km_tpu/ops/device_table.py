@@ -1,7 +1,8 @@
 """Device-resident count table with batched lookups (JAX).
 
 Layout: keys as (hi, lo) uint32 pairs (the 64-bit packed k-mer split in
-half, since JAX defaults to 32-bit on TPU), sorted lexicographically,
+half, since JAX runs with 32-bit types by default), sorted
+lexicographically,
 plus a 2^P-entry *prefix index* mapping the top P bits of the key to the
 start offset of that prefix's range. A batched query then runs a short
 masked binary search inside its bucket (~log2(max_bucket) gather rounds

@@ -59,8 +59,8 @@ PALETTE = 16  # distinct edge weights per bucket (catalog uses 2)
 def sweep_kernel_blob(blob, *, B, n, W):
     """Single-upload front end for sweep_kernel: the packed successor
     tables (int16 or int32), palettes (f32) and start nodes (i32) of a
-    bucket ride ONE uint32 blob — separate transfers each pay a link
-    round trip on remote backends. Layout: [dtype_tag, packed...,
+    bucket ride ONE uint32 blob — one transfer per dispatch instead of
+    three. Layout: [dtype_tag, packed...,
     palette..., starts...] with int16 tables packed two per word."""
     import jax.lax as lax
 
@@ -126,9 +126,8 @@ def sweep_kernel(packed, palette, starts, *, n, W):
     dist0 = jnp.full((B, n + 1), INF).at[rows, starts].set(jnp.float32(0))
     prev0 = jnp.full((B, n + 1), -1, jnp.int32)
 
-    # the relax step is scatter-free: TPU scatters serialize per index,
-    # while the [B, W, n] one-hot expansion + min-reduce stays fully
-    # vectorized (measured 2.6x faster at catalog shapes)
+    # the relax step is scatter-free: a [B, W, n] one-hot expansion +
+    # min-reduce, fully vectorized
     def body(_, state):
         dist, work, prev = state
         i = jnp.argmin(work[:, :n], axis=1).astype(jnp.int32)
@@ -214,7 +213,7 @@ def batched_sweeps(graphs):
     # widest member (one W=64 graph would cost a W=4 catalog 16x), so
     # groups never mix W. Within a W, small graphs (n_pad <= 512) merge
     # into one batch (extra lockstep iterations on small graphs are
-    # cheaper than per-dispatch link latency); big graphs keep their
+    # cheaper than extra dispatches); big graphs keep their
     # n_pad class. A group's palette union stays <= PALETTE — graphs
     # that don't fit the current union greedily open a new group.
     grouped: dict[tuple, list[list]] = {}
@@ -253,8 +252,8 @@ def batched_sweeps(graphs):
                 jnp.asarray(blob), B=B, n=n_pad, W=W)))
 
     if len(pending) > 1:
-        # one concatenated readback: per-transfer latency dominates on
-        # a remote link, so all buckets' trees ride home together
+        # one concatenated readback: all buckets' trees ride home in
+        # one transfer
         flat = np.asarray(jnp.concatenate(
             [t.reshape(-1) for _, t in pending]))
         off = 0

@@ -1,13 +1,13 @@
-"""Multi-host bring-up: jax.distributed initialization and mesh
-construction over a full pod slice.
+"""Multi-process bring-up: jax.distributed initialization and mesh
+construction over every device of every process.
 
 The reference composes work with Unix pipes and shell loops over
 samples (reference: example/run_leucegene.sh:29-35); there is no
-distributed runtime to mirror. Here a cohort run spans hosts: each host
-calls :func:`initialize` once at startup, then builds a global mesh with
-:func:`global_mesh`. Read chunks are fed per-host (each host only
-touches its local FASTQ shards); the count-table shard axis spans all
-devices of the slice so the table can exceed one host's HBM.
+distributed runtime to mirror. Here a cohort run can span processes:
+each process calls :func:`initialize` once at startup, then builds a
+global mesh with :func:`global_mesh`. Read chunks are fed per process
+(each process only touches its own FASTQ shards); the count-table shard
+axis spans all devices so the table can exceed one device's memory.
 """
 
 from __future__ import annotations
@@ -24,11 +24,13 @@ from jax.sharding import Mesh
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Initialize jax.distributed for a multi-host run.
+    """Initialize jax.distributed for a multi-process run.
 
-    On TPU pods all arguments are discovered from the environment; they
-    can be forced for other topologies. Safe to call when single-host
-    (no coordinator configured): it becomes a no-op.
+    The coordinator comes from the arguments or from
+    ``JAX_COORDINATOR_ADDRESS`` / ``COORDINATOR_ADDRESS``; with neither
+    (a single-process run) this is a no-op. Once a coordinator is
+    configured, any failure to join it raises: a process must not count
+    its samples alone while its peers wait for it.
     """
     explicit = (coordinator_address is not None or num_processes is not None
                 or "JAX_COORDINATOR_ADDRESS" in os.environ
@@ -37,40 +39,25 @@ def initialize(coordinator_address: str | None = None,
         log.info("jax.distributed already initialized; skipping")
         return
     if not explicit:
-        workers = [h for h in
-                   os.environ.get("TPU_WORKER_HOSTNAMES", "").split(",")
-                   if h.strip()]
-        if len(workers) <= 1:  # zero or one worker: nothing to do
-            log.info("single-host environment: skipping "
-                     "jax.distributed.initialize")
-            return
-    try:
-        jax.distributed.initialize(coordinator_address=coordinator_address,
-                                   num_processes=num_processes,
-                                   process_id=process_id)
-    except RuntimeError:
-        if explicit:
-            raise
-        # the only implicit-path failure is calling after a backend is
-        # already live (initialize must precede any JAX call); a no-op
-        # keeps library callers safe there, like the reference's
-        # libraries tolerate being driven from any shell context
-        log.info("late call (backend already live): skipping "
+        log.info("no coordinator configured: skipping "
                  "jax.distributed.initialize")
         return
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)
     log.info("jax.distributed initialized: process %d of %d",
              jax.process_index(), jax.process_count())
 
 
 def global_mesh(shard_axis: str = "shard", reads_axis: str | None = None,
                 reads: int = 1) -> Mesh:
-    """A mesh over every device of the slice (all hosts).
+    """A mesh over every device of every process.
 
     With ``reads_axis`` set, returns a 2-D (reads, shard) mesh — reads
     data-parallel over ``reads`` groups, the table sharded across the
     rest — matching km_tpu.parallel.pipeline_step's axes. Device order
     follows jax.devices(), so the shard axis stays contiguous within a
-    host (table exchange prefers ICI over DCN).
+    process.
     """
     devices = np.array(jax.devices())
     if reads_axis is None:
@@ -82,9 +69,9 @@ def global_mesh(shard_axis: str = "shard", reads_axis: str | None = None,
 
 
 def local_read_shards(paths: list[str]) -> list[str]:
-    """Partition input read files across hosts: host i takes files
-    i, i+P, i+2P, ... — the multi-host analog of the reference's
-    per-sample shell fan-out."""
+    """Partition input read files across processes: process i takes
+    files i, i+P, i+2P, ... — the multi-process analog of the
+    reference's per-sample shell fan-out."""
     p = jax.process_index()
     n = jax.process_count()
     return list(paths)[p::n]

@@ -18,8 +18,8 @@ One step does, entirely inside shard_map with XLA collectives:
    boundary keys, one ``all_to_all`` out, local binary search at the
    owner only, one ``all_to_all`` back (SURVEY §2.3's "all-to-all
    routed gather keyed by hash prefix"; sharded_table._route_and_lookup
-   is the shared kernel). ICI traffic O(Q) instead of the old
-   replicate+psum broadcast's O(Q x n_shards);
+   is the shared kernel). Interconnect traffic O(Q) instead of the
+   old replicate+psum broadcast's O(Q x n_shards);
 5. expand each query's 4 children and threshold them (one walk step) —
    child lookups ride the same routed exchange.
 
@@ -30,8 +30,6 @@ fall back to broadcast — results are never silently wrong.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 
@@ -81,11 +79,10 @@ def build_full_step(mesh: Mesh, k: int, chunk: int, bucket_cap: int,
         rhi = jax.lax.all_to_all(bhi, shard_axis, 0, 0).reshape(-1)
         rlo = jax.lax.all_to_all(blo, shard_axis, 0, 0).reshape(-1)
         rcnt = jax.lax.all_to_all(bcnt, shard_axis, 0, 0).reshape(-1)
-        from ..ops import pallas_sort as _ps
-
-        max_run = n_shards * (-(-(chunk - k + 1) // _ps.CHUNK) + 1)
+        # a key arrives at most once from each sender (one nonzero entry
+        # per globally sorted chunk; zero-count entries stay home)
         delta_hi, delta_lo, delta_cnt = count_mod.sum_runs_device(
-            rhi, rlo, rcnt, max_run=max_run)
+            rhi, rlo, rcnt, max_run=n_shards)
 
         # ---- 4. owner-routed lookup on the persistent table ----
         qh = qhi[0]  # local slice [1, Q/S] -> [Q/S]

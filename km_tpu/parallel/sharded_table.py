@@ -4,15 +4,16 @@ Sharding model (the scaling-book recipe, applied to k-mer tables):
 
 - the sorted key space is cut into ``n_shards`` contiguous ranges of
   equal record count; shard s holds keys[range_s] padded with sentinel
-  keys to a common length. Memory per chip = N / n_shards records, so a
-  multi-host slice holds tables far beyond one chip's HBM (a whole
-  RNA-seq sample is ~1e9 records = 12 GB);
+  keys to a common length. Memory per device = N / n_shards records, so
+  a mesh holds tables beyond one device's memory (a whole RNA-seq
+  sample is ~1e9 records = 12 GB);
 - **lookup (routed, the default)**: queries arrive *sharded* over the
   mesh; each device buckets its local queries by owner shard (a
   searchsorted against the shard-boundary keys), one ``all_to_all``
   delivers every query to the single shard that can answer it, the
   owner binary-searches only what it received, and a second
-  ``all_to_all`` returns the answers. ICI traffic is O(Q) each way and
+  ``all_to_all`` returns the answers. Interconnect traffic is O(Q) each
+  way and
   search work is Q total — vs O(Q x n_shards) for both under the
   replicate+psum broadcast (SURVEY §2.3: "lookups = all-to-all routed
   gather keyed by hash prefix"). Bucket capacity is sized for the
@@ -24,17 +25,16 @@ Sharding model (the scaling-book recipe, applied to k-mer tables):
   disjoint hit-or-0 answers. More traffic, but capacity-free;
 - **counting**: each device counts its own read chunk locally
   (sort + segment-reduce, km_tpu.ops.count), buckets the resulting
-  (key, count) runs by owner shard, and a fixed-size ``all_to_all``
-  routes every bucket to its owner, which merges into its slice.
+  (key, count) runs by owner shard (a hash of the key, so shards load
+  evenly), and a fixed-size ``all_to_all`` routes every bucket to its
+  owner, which sums what it received into one sorted run.
 
 km has no distributed runtime to mirror (the reference is a
 single-process tool over one mmapped file); this layer is what makes the
-same workload span a v5e pod slice.
+same workload span several devices.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 
@@ -308,23 +308,25 @@ def build_count_exchange(mesh: Mesh, axis: str, chunk: int, k: int,
     """Jitted step: per-device read chunks -> per-device sorted (key,
     count) runs routed to their owner shard.
 
-    Each device counts its chunk, buckets runs by owner (key high bits),
-    pads each bucket to ``bucket_cap`` and exchanges bucket i to device i
-    with one all_to_all. Returns (hi, lo, count) arrays of shape
-    [n_shards * bucket_cap] per device — the materials each owner merges
-    into its table slice. Dropped-run accounting is returned so callers
-    can detect bucket_cap overflow (raise and retry with a larger cap).
+    Each device counts its chunk, buckets runs by owner (a multiplicative
+    hash of the key's low word: the high word of a k=31 key uses only
+    its low 30 bits, and canonical form skews its top bases, so neither
+    can pick a balanced owner), pads each bucket to ``bucket_cap`` and
+    exchanges bucket i to device i with one all_to_all. Returns (hi, lo,
+    count) arrays of shape [n_shards * bucket_cap] per device, sorted,
+    each key's total at one position (count 0 elsewhere), plus
+    dropped-run accounting so callers can detect bucket_cap overflow
+    (raise and retry with a larger cap).
     """
-    from ..ops.count import count_chunk_device
+    from ..ops.count import count_chunk_device, sum_runs_device
 
     n_shards = mesh.shape[axis]
-    shard_bits = max(1, int(np.ceil(np.log2(max(n_shards, 2)))))
 
     def kernel(codes, valid):
         hi, lo, counts = count_chunk_device(codes[0], valid[0], k,
                                             canonical=canonical)
-        owner = (hi >> jnp.uint32(32 - shard_bits)).astype(jnp.int32)
-        owner = jnp.minimum(owner * n_shards >> shard_bits, n_shards - 1)
+        h = (lo * jnp.uint32(0x9E3779B1)) >> jnp.uint32(16)
+        owner = (h.astype(jnp.int32) * n_shards) >> 16
         owner = jnp.where(counts > 0, owner, n_shards)  # drop empty runs
 
         # stable-sort runs by owner, then slot each owner's runs into its
@@ -355,17 +357,13 @@ def build_count_exchange(mesh: Mesh, axis: str, chunk: int, k: int,
         rlo = jax.lax.all_to_all(blo, axis, 0, 0).reshape(-1)
         rcnt = jax.lax.all_to_all(bcnt, axis, 0, 0).reshape(-1)
 
-        # local merge: scatter-free segmented sum of received runs.
-        # Real keys appear at most once per sender sort-chunk; the
-        # sentinel padding's longer run sums only zeros, where any
-        # bound is exact
-        from ..ops import pallas_sort
-        from ..ops.count import sum_runs_device
-
-        max_run = n_shards * (-(-(chunk - k + 1) // pallas_sort.CHUNK)
-                              + 1)
+        # local merge: scatter-free segmented sum of received runs. Each
+        # sender's globally sorted chunk carries a real key at most once
+        # (zero-count records were dropped above), so a key arrives at
+        # most n_shards times; the sentinel padding's longer run sums
+        # only zeros, where any bound is exact
         merged_hi, merged_lo, merged_cnt = sum_runs_device(
-            rhi, rlo, rcnt, max_run=max_run)
+            rhi, rlo, rcnt, max_run=n_shards)
         return (merged_hi[None], merged_lo[None], merged_cnt[None],
                 dropped[None])
 
@@ -380,22 +378,21 @@ def build_count_exchange(mesh: Mesh, axis: str, chunk: int, k: int,
 def sharded_count(batches, mesh: Mesh, k: int, axis: str = "shard",
                   canonical: bool = True, min_count: int = 1,
                   chunk: int = 1 << 18, bucket_cap: int | None = None):
-    """Count k-mers across the mesh: reads split over devices, table
-    sharded by key range. Returns host (keys, counts)."""
-    from ..ops.count import merge_runs
+    """Count k-mers across the mesh: reads split over devices, each
+    device sums the runs of the keys it owns. Every device's result of
+    every step is one sorted run; all runs combine in a single native
+    k-way merge at the end (numpy pairwise merge as fallback). Returns
+    host (keys, counts)."""
+    from .. import native
+    from ..ops.count import chunk_stream, merge_runs
 
     n_shards = mesh.shape[axis]
     if bucket_cap is None:
         # expected bucket load is chunk / n_shards runs; 2x + slack
         # covers ordinary skew, and the overflow retry below covers
-        # adversarial key ranges (all windows owned by one shard)
+        # adversarial inputs
         bucket_cap = min(chunk, 2 * chunk // n_shards + 1024)
     step = build_count_exchange(mesh, axis, chunk, k, canonical, bucket_cap)
-
-    from ..ops.count import chunk_stream
-
-    acc_keys = np.empty(0, np.uint64)
-    acc_counts = np.empty(0, np.int64)
 
     def device_groups():
         """Group overlapping chunks n_shards at a time (pad with empties)."""
@@ -411,6 +408,7 @@ def sharded_count(batches, mesh: Mesh, k: int, axis: str = "shard",
                               np.zeros(chunk, bool)))
             yield group
 
+    runs: list[tuple[np.ndarray, np.ndarray]] = []
     for group in device_groups():
         c = np.stack([g[0] for g in group])
         v = np.stack([g[1] for g in group])
@@ -425,13 +423,22 @@ def sharded_count(batches, mesh: Mesh, k: int, axis: str = "shard",
             bucket_cap = min(chunk, bucket_cap * 2)
             step = build_count_exchange(mesh, axis, chunk, k, canonical,
                                         bucket_cap)
-        hi = np.asarray(hi).reshape(-1).astype(np.uint64)
-        lo = np.asarray(lo).reshape(-1).astype(np.uint64)
-        cnt = np.asarray(cnt).reshape(-1)
-        keep = cnt > 0
-        keys = (hi[keep] << np.uint64(32)) | lo[keep]
-        order = np.argsort(keys, kind="stable")
-        acc_keys, acc_counts = merge_runs(acc_keys, acc_counts,
-                                          keys[order], cnt[keep][order])
+        hi = np.asarray(hi).astype(np.uint64)
+        lo = np.asarray(lo).astype(np.uint64)
+        cnt = np.asarray(cnt)
+        for d in range(n_shards):
+            keep = cnt[d] > 0
+            if keep.any():
+                runs.append(((hi[d][keep] << np.uint64(32)) | lo[d][keep],
+                             cnt[d][keep].astype(np.int64)))
+
+    if not runs:
+        return np.empty(0, np.uint64), np.empty(0, np.uint32)
+    if native.available():
+        acc_keys, acc_counts = native.merge_sorted_runs(runs)
+    else:
+        acc_keys, acc_counts = runs[0]
+        for rk, rc in runs[1:]:
+            acc_keys, acc_counts = merge_runs(acc_keys, acc_counts, rk, rc)
     keep = acc_counts >= min_count
     return acc_keys[keep], acc_counts[keep].astype(np.uint32)

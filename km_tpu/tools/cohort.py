@@ -1,24 +1,24 @@
 """cohort: the whole reference pipeline for many samples, as one
 user-invocable command spanning a device mesh (and, with
-jax.distributed, a multi-host pod slice).
+jax.distributed, several processes).
 
 The reference runs a cohort as nested shell loops — one
 `km find_mutation | km find_report` process per (sample, target) pair
 (reference: example/run_leucegene.sh:29-35, example/README.rst:15-21).
 Here one invocation covers samples x targets:
 
-- **hosts** split the sample list (process i takes samples i, i+P, ...
-  — parallel.distributed.local_read_shards), the multi-host analog of
-  the reference's per-sample fan-out;
+- **processes** split the sample list (process i takes samples i,
+  i+P, ... — parallel.distributed.local_read_shards), the
+  multi-process analog of the reference's per-sample fan-out;
 - **samples given as reads** (FASTQ/FASTA) are counted on the local
   mesh: every local device counts a read shard and the (key, count)
   runs are exchanged to their owner shard by `all_to_all`
   (parallel.sharded_table.sharded_count) when more than one device is
-  attached, single-device counting otherwise (strategy per
-  backend, tools.count.count_read_files);
+  attached, single-device counting otherwise
+  (tools.count.count_read_files);
 - **targets** run as ONE batched pipeline per sample (models.batch):
   frontier walk, path sweeps and NNLS for the whole catalog together,
-  promoted to the accelerator when the device health probe passes;
+  promoted to the GPU when JAX has one (tools.batchmode);
 - **reports**: each target's rows run through the find_report
   transform, one output file per (sample, target), named like the
   reference recipe's `<outdir>/<sample>/<target>.tsv`.
@@ -52,8 +52,8 @@ def _table_for_sample(sample: str, args):
     from ..models.table import CountTable
     from .count import count_read_files
 
-    # KM_TPU_COHORT_SHARDED=1 forces the device/mesh path even for tiny
-    # inputs (used by the virtual-mesh tests)
+    # KM_TPU_COHORT_SHARDED=1 forces the JAX mesh path on the CPU
+    # backend even for tiny inputs (used by the virtual-mesh tests)
     device = ("cpu" if os.environ.get("KM_TPU_COHORT_SHARDED") == "1"
               else "auto")
     keys, counts = count_read_files(

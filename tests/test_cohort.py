@@ -1,8 +1,7 @@
 """The cohort subcommand: samples x targets through the batched
 pipeline, per-pair report files equal to the find_mutation|find_report
 pipe — and the count CLI's sharded path on the virtual 8-device mesh
-(VERDICT r3 ask #4: a user-invocable command must exercise
-km_tpu.parallel)."""
+(a user-invocable command must exercise km_tpu.parallel)."""
 
 import io
 import os
